@@ -1,6 +1,6 @@
-"""multigrid_tpu — a TPU-native multi-agent gridworld RL framework.
+"""multigrid_tpu — an accelerator-native multi-agent gridworld RL framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``ini/multigrid``: the gridworld lives as dense integer arrays, the
 multi-agent step is a pure jit-compiled transition function, observations are
 vmapped gather kernels, and thousands of environments run in lockstep via

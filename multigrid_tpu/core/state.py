@@ -1,4 +1,4 @@
-"""Dense environment state — the TPU-native replacement for the reference's
+"""Dense environment state — the array-native replacement for the reference's
 object graph.
 
 The reference keeps a dual representation: a dense ``(W, H, 3)`` int array in
@@ -14,8 +14,8 @@ and a vectorized ``(N, 9)`` AgentState row array with Python-object sidecars
 * agent fields      — split typed arrays instead of the packed 9-int row
                       (reference layout at multigrid/core/agent.py:222-232).
 
-Everything is a pytree (flax.struct), so a batched environment is just
-``vmap`` over a leading env axis and checkpointing is a plain orbax save.
+Everything is a pytree (``utils.struct``), so a batched environment is just
+``vmap`` over a leading env axis and a checkpoint is one array per leaf.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from ..utils import struct
 from .constants import (
     COLOR_RED,
     EMPTY_ENCODING,

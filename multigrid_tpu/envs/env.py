@@ -1,6 +1,6 @@
 """Functional environment base class.
 
-The TPU-native counterpart of ``MultiGridEnv`` (multigrid/base.py:36): instead
+The functional counterpart of ``MultiGridEnv`` (multigrid/base.py:36): instead
 of a stateful ``gym.Env``, an environment object holds only *static*
 configuration and exposes pure functions
 

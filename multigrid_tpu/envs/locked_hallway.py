@@ -218,7 +218,7 @@ class LockedHallwayEnv(RoomGrid):
         # Door positions are static layout constants, so the door cells'
         # encodings come from static (constant-index) slicing; the per-agent
         # forward cell is matched against them with masks — no per-env
-        # gathers/scatters (see ops/step.py TPU note).
+        # gathers/scatters (see the note in ops/step.py).
         # Static per-door indexing (plain slices), not fancy-index gathers.
         door_encs = jnp.stack([
             state.grid[int(x), int(y)] for x, y in self._door_pos

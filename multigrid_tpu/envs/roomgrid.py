@@ -1,6 +1,6 @@
 """Rooms-in-a-grid procedural base environment.
 
-TPU-native counterpart of the reference ``RoomGrid`` (multigrid/core/roomgrid.py:139):
+Array-native counterpart of the reference ``RoomGrid`` (multigrid/core/roomgrid.py:139):
 the static room lattice is precomputed host-side; the random parts of a
 layout (door positions/colors, object placement, agent placement with the
 front-cell retry) run on device as fixed-cost predicated draws, or host-side

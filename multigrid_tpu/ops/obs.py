@@ -1,6 +1,6 @@
 """Partial-observation generation — the hot kernel.
 
-TPU-native replacement for the reference's numba observation kernels
+Array-native replacement for the reference's numba observation kernels
 (multigrid/utils/obs.py). The object-graph-free pipeline:
 
 1. overlay live agents' encodings into the grid      (obs.py:162-173)
@@ -15,7 +15,7 @@ TPU-native replacement for the reference's numba observation kernels
 Everything is expressed as predicated vector ops over static shapes: the
 flood fill's sequential in-place row sweeps become fixpoint shift-OR chains
 (``view_size`` is small and static, so full unrolling is cheap and lets XLA
-fuse the whole mask into a handful of VPU ops). ``vmap`` over agents and
+fuse the whole mask into a handful of elementwise ops). ``vmap`` over agents and
 environments gives the batched kernel.
 """
 
@@ -154,8 +154,7 @@ def _overlay_agents(state: MultiGridState) -> jax.Array:
     The reference overlays agents in index order 0..N-1 (later indices win on
     overlapping positions), skipping terminated agents; the loop is unrolled
     here to preserve that overwrite order exactly. Writes are one-hot masked
-    selects, not scatters (per-env positions are traced under vmap and
-    scatters would serialize terribly on TPU).
+    selects, not scatters (per-env positions are traced under vmap).
     """
     grid = state.grid
     enc = state.agent_encoding
@@ -181,8 +180,8 @@ def _shift_crop(
     The shift decomposes into its binary digits: ``ceil(log2(dim/stride))``
     predicated static rolls (``where(bit_k, roll(v, -stride·2^k), v)``) —
     pure data movement + elementwise select, which vectorizes perfectly over
-    the env batch, unlike per-env dynamic slices which lower to gathers
-    (measured ~20× slower at 4096 envs on TPU). ``shift`` may have leading
+    the env batch, unlike per-env dynamic slices which lower to gathers.
+    ``shift`` may have leading
     batch dims that broadcast against ``v``'s leading dims.
     """
     dim = v.shape[axis] // stride
@@ -210,12 +209,12 @@ def gen_obs_grid(
     Equivalent of ``gen_obs_grid`` (obs.py:130-209): overlay, crop with
     out-of-bounds→wall, rotate to face up, carried-object overlay.
 
-    TPU mapping: the crop at per-agent traced offsets is two chains of
+    Lowering: the crop at per-agent traced offsets is two chains of
     predicated rolls (binary-decomposed shift, :func:`_shift_crop`) — no
     gathers, no scatters, no tiny-matrix matmuls; everything on the hot path
     is elementwise/static data movement. The padded grid is cast to int8
     (cell values ≤ 10) with the channel dim folded into the minor axis, so
-    the roll chain moves 4× fewer bytes in a lane-friendly layout.
+    the roll chain moves 4× fewer bytes.
 
     Returns ``(N, vs, vs, 3)`` int32.
     """

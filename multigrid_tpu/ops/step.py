@@ -1,6 +1,6 @@
 """The jitted environment transition kernel.
 
-TPU-native replacement for the reference's sequential Python action loop
+Array-native replacement for the reference's sequential Python action loop
 (multigrid/base.py:378-476). Agents act **sequentially in a given order** —
 conflicts are resolved by order, not simultaneously — so the kernel applies
 ``N`` masked sub-steps via ``lax.scan``. Every sub-step is branch-free: the
@@ -163,13 +163,12 @@ def handle_actions(
     )
     rewards = jnp.zeros((n,), dtype=jnp.float32)
 
-    # TPU note: the agent index `i` below is a traced per-env value (the
-    # action order differs per environment under vmap), so *indexed*
-    # reads/writes (x[i], grid[fx, fy], .at[...].set) would lower to
-    # per-env gathers/scatters — catastrophically slow on TPU for these
-    # tiny trailing dims (measured ~15 ms/step at 4096 envs). Every access
-    # is instead expressed as a one-hot select/masked update: pure
-    # elementwise VPU work that XLA fuses across the env batch.
+    # The agent index `i` below is a traced per-env value (the action order
+    # differs per environment under vmap), so *indexed* reads/writes (x[i],
+    # grid[fx, fy], .at[...].set) would lower to per-env gathers/scatters
+    # over tiny trailing dims. Every access is instead expressed as a
+    # one-hot select/masked update: elementwise work that XLA fuses across
+    # the env batch.
     agent_iota = jnp.arange(n, dtype=jnp.int32)
     dir_iota = jnp.arange(4, dtype=jnp.int32)
     cell_x = jnp.arange(w, dtype=jnp.int32)[:, None]

@@ -2,11 +2,10 @@
 
 The reference has no distributed backend (SURVEY.md §5 — multi-process
 execution only via Ray actors in its example scripts). Here multi-host runs
-use JAX's native runtime: ``initialize()`` wires up ``jax.distributed`` (GCE
-TPU metadata or explicit coordinator), after which ``make_mesh()`` spans all
-hosts' devices and the same ``VectorEnv``/PPO code runs unchanged — env
-shards ride ICI within a slice, gradient all-reduce crosses DCN only between
-slices.
+use JAX's native runtime: ``initialize()`` wires up ``jax.distributed``
+with an explicit coordinator, after which ``make_mesh()`` spans all hosts'
+devices and the same ``VectorEnv``/PPO code runs unchanged — env shards
+never communicate, and only the gradient all-reduce crosses hosts.
 """
 
 from __future__ import annotations
@@ -21,8 +20,10 @@ def initialize(
 ) -> None:
     """Initialize multi-host JAX. No-ops on single-process runs.
 
-    With no arguments, relies on the cluster environment (TPU metadata /
-    SLURM / GKE) like ``jax.distributed.initialize`` itself does.
+    With no arguments, relies on the cluster environment (e.g. SLURM) like
+    ``jax.distributed.initialize`` itself does; a plain multi-process run
+    on one machine passes ``coordinator_address='localhost:<port>'``,
+    ``num_processes`` and ``process_id``.
     """
     if num_processes is not None and num_processes <= 1:
         return

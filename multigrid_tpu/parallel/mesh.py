@@ -1,9 +1,10 @@
 """Device-mesh helpers.
 
 Environment batches shard over a data axis (``'env'``); learner parameters may
-additionally shard over a model axis (``'model'``). Collectives ride ICI
-within a pod slice — the mesh is constructed so the env axis maps to the
-fastest-varying physical axis.
+additionally shard over a model axis (``'model'``). The only collective the
+env axis needs is the learner's gradient all-reduce; on one host's GPUs it
+rides NVLink, which joins every pair of cards, so the device order of the
+mesh does not matter.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 ``VectorEnv`` lifts a functional :class:`~multigrid_tpu.envs.env.MultiGridEnv`
 to a batch of ``num_envs`` independent instances running in lockstep under one
-``jit``. Episode boundaries are handled *inside* the kernel: whenever an env
+``jit``. Episode boundaries are handled *inside* the step: whenever an env
 is done (all agents terminated, or truncated — multigrid/base.py:534-539),
 a fresh layout is generated from that env's PRNG stream and swapped in with a
 predicated select, so stepping never leaves the device and never recompiles.
@@ -63,7 +63,6 @@ class VectorEnv:
         *,
         auto_reset: bool = True,
         mesh: Mesh | None = None,
-        use_pallas_obs: bool | None = None,
         reset_pool: bool | None = None,
         reset_pool_period: int | None = None,
         packed_obs: bool = False,
@@ -74,9 +73,9 @@ class VectorEnv:
         self.mesh = mesh
         self._sharding = env_sharding(mesh) if mesh is not None else None
         if packed_obs:
-            # Packed images are a training-throughput format: the obs
-            # kernel's native int32 cells (type<<8|color<<4|state) skip the
-            # 3-channel unpack and carry 1/3 the rollout-storage traffic.
+            # Packed images are a training-throughput format: int32 cells
+            # (type<<8|color<<4|state) carry 1/3 the rollout-storage
+            # traffic of the channel triples.
             # Observation wrappers expect channel triples, so only base envs
             # qualify; 4-bit fields bound color/state indices.
             from ..core.constants import Color, State
@@ -104,67 +103,10 @@ class VectorEnv:
             # at least ``period`` steps (every reserve slot is regenerated
             # between consecutive truncation-driven consumptions), capped so
             # early-terminating envs don't grow arbitrarily stale. Larger
-            # periods are faster (fewer layouts regenerated per step) —
-            # Playground measures 20.6M agent-steps/s at its 100-step cap vs
-            # 19.1M at 64.
+            # periods are faster (fewer layouts regenerated per step).
             reset_pool_period = min(128, max(1, env.cfg.max_steps))
         assert reset_pool_period >= 1
         self.reset_pool_period = reset_pool_period
-        if use_pallas_obs is None:
-            # The fused kernel requires a TPU backend and block-divisible
-            # per-shard env batches (under a mesh it runs inside shard_map,
-            # one kernel per chip over the local shard). Very large teams
-            # make the unrolled kernel a Mosaic compile bomb, and the packed
-            # cell encoding carries 4 color bits — the XLA path handles both.
-            from ..core.constants import Color
-            from ..ops.obs_pallas import pick_block, supports_batch
-            shards = mesh.devices.size if mesh is not None else 1
-            gates = {
-                'backend is not TPU':
-                    jax.default_backend() in ('cpu', 'gpu'),
-                f'num_envs={num_envs} not divisible by {shards} mesh shards':
-                    num_envs % shards != 0,
-                f'per-shard batch {num_envs // max(shards, 1)} not supported '
-                f'by the kernel (needs %128 == 0 or small)':
-                    num_envs % shards == 0
-                    and not supports_batch(
-                        num_envs // shards, env.width, env.height,
-                        env.cfg.view_size, env.num_agents),
-                f'num_agents={env.num_agents} > 8': env.num_agents > 8,
-                f'{len(Color)} colors > 16': len(Color) > 16,
-            }
-            failed = [msg for msg, hit in gates.items() if hit]
-            use_pallas_obs = not failed
-            if failed and jax.default_backend() not in ('cpu', 'gpu'):
-                # On TPU, silently losing the fused obs kernel costs ~7× on
-                # the obs path — say why, once per constructor call.
-                import warnings
-                warnings.warn(
-                    'VectorEnv: falling back to the (slower) XLA observation '
-                    'path — ' + '; '.join(failed),
-                    stacklevel=2,
-                )
-        self.use_pallas_obs = use_pallas_obs
-        if self.use_pallas_obs:
-            # Lane-block downgrades are legal but never silent: a shrunk
-            # block costs ~8% end-to-end (measured, Playground at 256), so
-            # say so whenever the working-set model pushes a grid below the
-            # full 512 lanes.
-            from ..ops.obs_pallas import _MAX_BLOCK, pick_block
-            block = pick_block(env.width, env.height, env.cfg.view_size,
-                               env.num_agents)
-            per_shard = num_envs // (
-                mesh.devices.size if mesh is not None else 1)
-            if block < min(_MAX_BLOCK, per_shard):
-                import warnings
-                warnings.warn(
-                    f'VectorEnv: obs-kernel lane block downgraded to {block} '
-                    f'for grid {env.width}x{env.height} (view '
-                    f'{env.cfg.view_size}, {env.num_agents} agents) — the '
-                    f'VMEM working set exceeds the scoped limit at 512 '
-                    f'lanes; expect ~8% lower step throughput',
-                    stacklevel=2,
-                )
 
     @classmethod
     def sharded(cls, env: MultiGridEnv, num_envs: int, **kwargs) -> 'VectorEnv':
@@ -203,8 +145,7 @@ class VectorEnv:
     # bits 12-23). The pool's per-step moves — the rotating-offset roll and
     # the consumption select's reserve read — stream 3-6x fewer bytes than
     # the raw (E, W, H, 3) triples; the unpack is elementwise and fuses
-    # into the select (measured: Playground's reserve roll+select was the
-    # largest auto-reset cost after the chunked refresh).
+    # into the select.
 
     def _pool_pack(self, s: MultiGridState) -> MultiGridState:
         """Pack grid (+ box_contents) into one flat int32 leaf."""
@@ -295,16 +236,14 @@ class VectorEnv:
         """Regenerate a rotating slice of the reserve covering ``chunk``
         steps' worth of slots.
 
-        (A ``lax.cond``-gated "big slice every K steps" variant measured 3x
-        SLOWER end-to-end on TPU — a conditional inside the rollout scan
-        wrecks buffer aliasing for the carried pool — so per-step refresh
-        stays unconditional. The *chunked* form instead moves the refresh
-        OUT of the step scan entirely: rollout loops call
-        :meth:`refresh_pool` once per chunk of ``refresh=False`` steps. The
-        win is not traffic but program latency — the procedural layout
-        chain (sequential placements with reductions between) is
-        launch-bound, measured ~0.4 ms/step on Playground at ANY slice
-        width, 57% of its step time.)
+        (A ``lax.cond``-gated "big slice every K steps" variant keeps a
+        conditional inside the rollout scan, which defeats buffer aliasing
+        for the carried pool, so per-step refresh stays unconditional. The
+        *chunked* form instead moves the refresh OUT of the step scan
+        entirely: rollout loops call :meth:`refresh_pool` once per chunk of
+        ``refresh=False`` steps. The win is not traffic but program latency:
+        the procedural layout chain (sequential placements with reductions
+        between) is launch-bound at any slice width.)
         """
         e = self.num_envs
         # ceil: the rotation must cover all slots within the period.
@@ -347,16 +286,16 @@ class VectorEnv:
                        static_argnames=('refresh',), donate_argnums=1)
     def step(self, state: MultiGridState, actions: jax.Array,
              *, refresh: bool = True):
-        """Step all envs; auto-reset finished episodes in-kernel.
+        """Step all envs; auto-reset finished episodes inside the step.
 
         ``refresh=False`` skips the per-step reserve-pool regeneration (the
         consumption offset still advances); the caller then owes one
         :meth:`refresh_pool` per chunk of such steps. Rollout loops
         (``rollout_random``, the PPO train step) use this automatically —
-        the procedural layout chain is launch-bound, so batching it per
-        chunk instead of per step removed 57% of Playground's step time.
+        the procedural layout chain is launch-bound, so it runs once per
+        chunk instead of once per step.
 
-        Observation generation — the most expensive kernel — runs exactly
+        Observation generation — the most expensive part — runs exactly
         once, on the post-auto-reset merged state: finished envs observe
         their fresh layout, running envs their post-action pre-hook state
         (the reference generates obs before subclass step() hooks run,
@@ -456,41 +395,17 @@ class VectorEnv:
         return self._constrain(
             (obs, new_state, rew, term, trunc, done, success))
 
-    def _gen_obs_batched(self, state: MultiGridState, interpret: bool = False):
-        """Raw observations for a batched state — fused Pallas kernel on TPU,
-        vmapped XLA path elsewhere (bit-identical; tests/test_obs_pallas.py).
-
-        Under a mesh the kernel runs inside ``shard_map`` over the env axis:
-        one kernel invocation per chip on its local shard, zero cross-chip
-        communication.
-        """
+    def _gen_obs_batched(self, state: MultiGridState):
+        """Raw observations for a batched state: the single-env obs path
+        (ops/obs.py) vmapped over envs."""
         cfg = self.env.cfg
-        if self.use_pallas_obs or interpret:
-            from ..ops.obs_pallas import gen_obs_batched_pallas
-
-            def kernel_fn(s):
-                image = gen_obs_batched_pallas(
-                    s, cfg.view_size, cfg.see_through_walls,
-                    interpret=interpret, packed=self.packed_obs,
-                )
-                return {'image': image, 'direction': s.agent_dir}
-
-            if self.mesh is not None:
-                from jax.sharding import PartitionSpec as P
-                kernel_fn = jax.shard_map(
-                    kernel_fn, mesh=self.mesh,
-                    in_specs=P('env'), out_specs=P('env'),
-                    check_vma=False,
-                )
-            return kernel_fn(state)
         obs = jax.vmap(lambda s: gen_obs(cfg, s))(state)
         return self._pack_obs(obs) if self.packed_obs else obs
 
     def _pack_obs(self, obs):
-        """Pack (…, vs, vs, 3) channel triples into the kernel's int32 cell
-        format, flattened to a (…, vs·vs) cell axis (bit-identical to the
-        Pallas ``packed=True`` output; flat so rollout buffers avoid the
-        (8, 128) tile padding a trailing (vs, vs) would incur)."""
+        """Pack (…, vs, vs, 3) channel triples into int32 cells
+        (``type<<8 | color<<4 | state``), flattened to a (…, vs·vs) cell
+        axis."""
         img = obs['image']
         packed = (
             (img[..., 0].astype(jnp.int32) << 8)
@@ -508,20 +423,6 @@ class VectorEnv:
             obs = self._pack_obs(obs)
         return self._constrain(obs)
 
-    @functools.partial(jax.jit, static_argnums=0)
-    def obs_both_paths(self, state: MultiGridState):
-        """(pallas_image, xla_image) for the same state — the on-hardware
-        bit-equality check behind ``bench.py --verify`` (the Pallas kernel's
-        ground truth is the XLA path, itself differentially tested against
-        the reference numba kernels, multigrid/utils/obs.py)."""
-        from ..ops.obs_pallas import gen_obs_batched_pallas
-        state, _ = self._strip_pool(state)
-        cfg = self.env.cfg
-        pal = gen_obs_batched_pallas(
-            state, cfg.view_size, cfg.see_through_walls)
-        xla = jax.vmap(lambda s: gen_obs(cfg, s))(state)['image']
-        return pal, xla
-
     # ------------------------------------------------------------ rollouts
 
     #: Steps per chunked pool refresh in rollout loops (the launch-bound
@@ -535,14 +436,13 @@ class VectorEnv:
         The throughput benchmark core: one fused scan, nothing leaves the
         device until the final state. Returns ``(state, summary)`` where
         summary holds reward/done tallies plus an observation checksum — the
-        checksum gives the obs kernel a live data dependency, so XLA cannot
-        dead-code-eliminate observation generation out of the benchmark.
+        checksum gives observation generation a live data dependency, so XLA
+        cannot dead-code-eliminate it out of the benchmark.
 
         With a reserve pool, steps run in chunks of ``_REFRESH_CHUNK``
         refresh-less steps followed by one chunked pool refresh (same
         freshness contract; the launch-bound procedural layout chain runs
-        once per chunk instead of once per step — measured 57% of
-        Playground's per-step cost).
+        once per chunk instead of once per step).
         """
         def body(refresh):
             def _body(carry, _):
@@ -555,7 +455,7 @@ class VectorEnv:
                 obs, st, rew, _, _, done, _suc = self.step(
                     st, actions, refresh=refresh)
                 # The image is the expensive leaf — checksum it specifically
-                # so the obs kernel stays live (dict iteration order would
+                # so obs generation stays live (dict iteration order would
                 # otherwise pick 'direction', leaving the image dead code).
                 obs_leaf = obs['image'] \
                     if isinstance(obs, dict) and 'image' in obs \

@@ -1,6 +1,6 @@
 """Extensible indexed enumerations.
 
-TPU-native equivalent of the reference's aenum-based ``IndexedEnum``
+Equivalent of the reference's aenum-based ``IndexedEnum``
 (reference: multigrid/utils/enum.py:42-89). Built on the stdlib ``enum``
 module plus a small ``extend_enum`` implementation, since ``aenum`` is not a
 dependency of this framework. Each member has a stable integer index — the

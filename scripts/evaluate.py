@@ -5,8 +5,8 @@ of completed episodes whose final pre-reset state satisfied the env's
 exact task-completion predicate (``MultiGridEnv.success`` — all doors
 unlocked / target box carried / agent on goal), plus mean episodic return.
 The evaluation analogue of the reference's visualize loop
-(multigrid/scripts/visualize.py:37-71), at throughput: 100M+ agent-steps
-of evidence in minutes on one chip.
+(multigrid/scripts/visualize.py:37-71), at throughput: a whole VectorEnv
+batch of episodes per jitted call.
 
 Examples
 --------
@@ -51,7 +51,7 @@ def parse_args() -> argparse.Namespace:
                    help='must match the training run (affects the '
                         'checkpoint parameter structure)')
     p.add_argument('--seed', type=int, default=0)
-    p.add_argument('--platform', default=None, choices=['cpu', 'tpu'])
+    p.add_argument('--platform', default=None, choices=['cpu', 'gpu'])
     return p.parse_args()
 
 

@@ -45,26 +45,26 @@ MODULES = [
     'multigrid_tpu.envs.roomgrid',
     'multigrid_tpu.ops.step',
     'multigrid_tpu.ops.obs',
-    'multigrid_tpu.ops.obs_pallas',
-    'multigrid_tpu.ops.fused_linear',
-    'multigrid_tpu.ops.fused_ppo',
     'multigrid_tpu.parallel.vector',
     'multigrid_tpu.parallel.mesh',
     'multigrid_tpu.parallel.distributed',
     'multigrid_tpu.learn.nets',
     'multigrid_tpu.learn.ppo',
+    'multigrid_tpu.learn.reference',
     'multigrid_tpu.wrappers',
     'multigrid_tpu.adapters.gym',
     'multigrid_tpu.adapters.pettingzoo',
     'multigrid_tpu.adapters.rllib',
     'multigrid_tpu.render',
     'multigrid_tpu.utils.checkpoint',
+    'multigrid_tpu.utils.compile_cache',
     'multigrid_tpu.utils.enum',
     'multigrid_tpu.utils.minigrid_interface',
     'multigrid_tpu.utils.minigrid_builder',
     'multigrid_tpu.utils.misc',
     'multigrid_tpu.utils.profiling',
     'multigrid_tpu.utils.rendering',
+    'multigrid_tpu.utils.struct',
 ]
 
 
@@ -110,7 +110,7 @@ def _render_class(name: str, cls) -> list[str]:
     bases = [b.__name__ for b in cls.__bases__ if b is not object]
     if bases:
         lines += [f'*Bases:* {", ".join(f"`{b}`" for b in bases)}', '']
-    # dataclass / flax-struct fields
+    # dataclass fields
     fields = getattr(cls, '__dataclass_fields__', None)
     if fields:
         lines += ['| field | default |', '|---|---|']

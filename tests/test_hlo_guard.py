@@ -1,12 +1,13 @@
 """HLO regression guard: no scatter/gather on the hot path.
 
 Per-env traced indexed reads/writes (``grid[fx, fy]``, ``.at[i].set``,
-``jnp.take``) lower to gathers/scatters that serialize per env under vmap —
-measured ~5 ms/step at 4096 envs on TPU v5e vs ~0.05 ms for the equivalent
-one-hot masked arithmetic (see ops/step.py, ops/place.py). Even
-*constant-index* ``.at[].set`` re-lowers to a scatter under vmap, so the
-whole hot path is written scatter-free and this test pins it at ZERO
-scatter/gather ops in the jitted ``VectorEnv.step`` StableHLO for every env
+``jnp.take``) lower to gathers/scatters under vmap; the hot path is written
+as one-hot masked arithmetic instead (see ops/step.py, ops/place.py), which
+XLA fuses across the env batch. Whether gathers would pay on the GPU is an
+open question (ROADMAP S6); until it is measured, this guard keeps the one
+form. Even *constant-index* ``.at[].set`` re-lowers to a scatter under
+vmap, so the whole hot path is written scatter-free and this test pins it at
+ZERO scatter/gather ops in the jitted ``VectorEnv.step`` StableHLO for every env
 family and the wrapper chain.
 
 If this test fails after a change, rewrite the offending indexed access as a

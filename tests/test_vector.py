@@ -289,3 +289,20 @@ def test_reset_pool_chunked_refresh_regenerates_slots():
     # compare per-slot regardless of the storage layout.
     changed = (before != after).reshape(before.shape[0], -1).any(axis=1)
     assert changed.all(), f'unrefreshed slots: {np.where(~changed)[0]}'
+
+
+def test_pool_pack_roundtrip():
+    """The reserve pool's bit-packed storage format round-trips exactly
+    (grid and box_contents through one flat int32 plane)."""
+    env = make('MultiGrid-BlockedUnlockPickup-v0', agents=2)
+    venv = VectorEnv(env, 8)
+    assert venv._pool_packed
+    state = jax.vmap(env.reset_core)(jax.random.split(jax.random.key(3), 8))
+    assert state.box_contents.size  # BUP layouts contain a Box
+    packed = venv._pool_pack(state)
+    assert packed.grid.ndim == 2 and packed.box_contents.size == 0
+    back = venv._pool_unpack(packed, state)
+    np.testing.assert_array_equal(np.asarray(back.grid),
+                                  np.asarray(state.grid))
+    np.testing.assert_array_equal(np.asarray(back.box_contents),
+                                  np.asarray(state.box_contents))
